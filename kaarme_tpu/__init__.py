@@ -1,9 +1,9 @@
-"""kaarme_tpu — a TPU-native canonical k-mer counting framework.
+"""kaarme_tpu — canonical k-mer counting on an accelerator (JAX/XLA).
 
 A from-scratch rebuild of the capabilities of Kaarme
 (Denopia/canonical-k-mer-hash-table): streaming FASTA / plain-text
 canonical k-mer counting with an optional two-stage Bloom prefilter,
-re-designed for TPU hardware (JAX / XLA / Pallas / shard_map) instead of
+re-designed as bulk device passes (JAX / XLA / shard_map) instead of
 C++ threads + CAS loops.
 
 Layout
@@ -13,7 +13,7 @@ Layout
                C++ fast encoder (ctypes)
 - ``ops``      device kernels: sort-backend counting (flagship:
                canonical windows -> global sort -> segment-reduce),
-               Pallas window kernel, probe-table backend, hashing,
+               super-k-mer pipeline, probe-table backend, hashing,
                two-stage Bloom filter
 - ``parallel`` device-mesh sharding: data-parallel streaming + hash-prefix
                all_to_all exchange of distinct records (sort backend),

@@ -1,7 +1,7 @@
 """Streaming input: format sniffing, chunked (optionally gzip) reading,
 and an async prefetch pipeline feeding the device.
 
-TPU-native counterpart of the reference's IO runtime:
+Counterpart of the reference's IO runtime:
 - format sniffing by gzip magic + first content byte
   (reference: main.cpp:19-68);
 - chunked reads with k-1 overlap so windows spanning chunk boundaries are
@@ -10,7 +10,7 @@ TPU-native counterpart of the reference's IO runtime:
   header/newline stripping, which is simpler and byte-exact);
 - a producer thread + bounded queue replaces the reference's io_worker /
   ts_queue machinery (reference: include/parallel_parser.hpp:1230-1299,
-  include/ts_queue.h) — the consumer is the TPU, not worker threads.
+  include/ts_queue.h) — the consumer is the device, not worker threads.
 """
 
 from __future__ import annotations

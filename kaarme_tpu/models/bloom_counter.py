@@ -211,8 +211,7 @@ class BloomSortCounter(SortKmerCounter):
         self.bf1, self.bf2, n1, n2 = _sortcount.bloom_pass1_superstep(
             self.bf1, self.bf2, packed_d, sep_d, wstart, srow,
             k=cfg.k, n=n, rows=min(cfg.rows, n), dense=dense,
-            hfn=self.hfn, pallas=self._pallas_mode(),
-            winkeys=self._winkeys_mode())
+            hfn=self.hfn, winkeys=cfg.winkeys)
         self._n12.append((n1, n2))
 
     def start_pass2(self):
@@ -270,8 +269,7 @@ def bloom_sort_count_codes(cfg: SortCounterConfig, expected_unique: int,
 
 class BloomSkmCounter(SkmCounter):
     """Super-k-mer pipeline with the two-stage Bloom prefilter
-    (``--pipeline skm -b`` — closes the last config-matrix hole,
-    VERDICT r4 missing 4).
+    (``--pipeline skm -b``).
 
     Pass 1 is the same window-hash BF fill as BloomSortCounter (it
     needs only window keys, so it is pipeline-agnostic).  Pass 2
@@ -306,8 +304,7 @@ class BloomSkmCounter(SkmCounter):
         self.bf1, self.bf2, n1, n2 = _sortcount.bloom_pass1_superstep(
             self.bf1, self.bf2, packed_d, sep_d, wstart, srow,
             k=cfg.k, n=n, rows=min(cfg.rows, n), dense=dense,
-            hfn=self.hfn, pallas=self._pallas_mode(),
-            winkeys=self._winkeys_mode())
+            hfn=self.hfn, winkeys=cfg.winkeys)
         self._n12.append((n1, n2))
 
     def start_pass2(self):

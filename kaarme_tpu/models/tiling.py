@@ -3,7 +3,7 @@
 Produces (batch_tiles, tile + k - 1) uint8 arrays where consecutive tiles
 overlap by k-1 codes (the halo), so every window of the stream appears in
 exactly one tile position.  Fixed shapes mean the device step compiles
-once.  This is the TPU analogue of the reference's chunking + k-1
+once.  This is the device analogue of the reference's chunking + k-1
 backseek (reference: include/text_reader.h:206-213).
 """
 

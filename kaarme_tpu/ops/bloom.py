@@ -1,21 +1,20 @@
 """Two-stage BLOCKED Bloom prefilter (device side, JAX/XLA).
 
-TPU-native rebuild of the reference's ``DoubleAtomicDoubleBloomFilter``
+Device rebuild of the reference's ``DoubleAtomicDoubleBloomFilter``
 (reference: include/double_bloomfilter.hpp:233-452): BF1 = "seen at
 least once", BF2 = "seen at least twice"; pass 1 populates both, the
 table is sized from the BF2 cardinality counter, then BF1 is dropped
 ("squeeze", reference: include/mybitarray.hpp:127-162) and pass 2 counts
 only k-mers whose bits are all set in BF2.
 
-Design differences, TPU-motivated (round 4 redesign):
+Design differences:
 - **blocked layout**: all ``hfn`` bits of a key live in ONE uint32 word
   (word index from r1, bit pattern from r2 via double hashing with an
   odd stride — a permutation of the 32 bit positions, so the hfn bits
   are always distinct).  Membership is ONE gather + compare instead of
-  hfn gathers; measured gathers run ~95M/s on this chip, so the
-  classical layout cost hfn x n gathers per superstep (seconds) and its
-  converging-scatter insert held hfn x n index/mask/pending arrays live
-  (~5 GB at the bench shape — it crashed the TPU worker).  Blocked
+  hfn gathers, and the classical layout's converging-scatter insert
+  held hfn x n index/mask/pending arrays live (~5 GB at the bench
+  shape).  Blocked
   trades a higher per-word false-positive rate for that; the allocation
   site compensates with ``BLOCK_COMPENSATION`` x the reference bit
   count (memory is trivial: the reference sizing is ~8 MB/stage).

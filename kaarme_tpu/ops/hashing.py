@@ -2,14 +2,14 @@
 
 The reference uses a dual Rabin-Karp rolling hash over a prime modulus
 (reference: source/hash_functions.cpp:102-208) because it updates one
-character at a time on a CPU.  On TPU all windows of a tile are
+character at a time on a CPU.  On the device all windows of a tile are
 materialized at once, so rolling recurrences buy nothing; we hash the
 packed canonical words directly with murmur3-style multiplicative mixing,
-which is a handful of VPU ops per word and gives uniform low bits so the
+which is a handful of integer ops per word and gives uniform low bits so the
 table can use power-of-two mask addressing.
 
 Everything is uint32; XLA integer multiplies wrap mod 2^32 which is
-exactly what the mixers need (TPUs have no native 64-bit lanes).
+exactly what the mixers need (no 64-bit lanes are assumed).
 """
 
 from __future__ import annotations

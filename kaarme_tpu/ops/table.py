@@ -1,10 +1,10 @@
 """Batched open-addressing canonical k-mer count table in HBM.
 
-TPU-native replacement for the reference's CAS-based probe/insert loop
+Device replacement for the reference's CAS-based probe/insert loop
 (``PointerHashTableCanonicalAV::process_kmer_MT``, reference:
 source/kmer_hash_table.cpp:2207-2567) and for the plain spinlocked table
-(reference: include/parallel_parser.hpp:465-551).  TPUs have no atomics,
-so per-k-mer CAS is replaced by *batched probe rounds* over whole tiles:
+(reference: include/parallel_parser.hpp:465-551).  Per-k-mer CAS is
+replaced by *batched probe rounds* over whole tiles:
 
   round r (all pending windows at once, pure gather/scatter):
     1. slot  = (h + r(r+1)/2) & (C-1)        (triangular probe, full cycle)
@@ -121,7 +121,7 @@ def insert(tkeys, counts, keys, valid, h, amount=None, max_probes: int = 64):
 def lookup(tkeys, counts, keys, h, max_probes: int = 64):
     """Point lookup: count per key (0 if absent).
 
-    TPU analogue of the reference's ``find`` API
+    Device analogue of the reference's ``find`` API
     (reference: source/kmer_hash_table.cpp:2675-2727).
     """
     key_mat = jnp.stack(keys, axis=1)

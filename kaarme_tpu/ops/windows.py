@@ -4,7 +4,7 @@ Replaces the reference's sequential per-character sliding factory
 (``KMerFactoryCanonical2BC``, reference: source/kmer_factory.cpp:104-239)
 with a fully vectorized formulation: for a tile of base codes all windows
 are materialized at once via static shifted slices, so there is no
-sequential dependence and the whole tile maps onto VPU lanes.
+sequential dependence and the whole tile maps onto vector lanes.
 
 Packing: base i of a window occupies word i//16 at bit 30 - 2*(i % 16)
 (big-endian within and across words, trailing word left-aligned), so

@@ -1,7 +1,7 @@
 """Multi-device (and multi-host) sharded counting.
 
 The reference has no distribution at all — its parallelism is N CPU
-threads CAS-ing one shared table (SURVEY.md section 2.2).  The TPU-native
+threads CAS-ing one shared table (SURVEY.md section 2.2).  The device
 scale-out keeps that table as ONE logical array sharded over a device
 mesh:
 
@@ -11,8 +11,8 @@ mesh:
 - read tiles are data-parallel over ``d``: every device extracts windows
   from its own shard of the input stream;
 - each window is routed to its owner via ``jax.lax.all_to_all`` as a
-  (key words, amount) record over ICI; the owner runs the same batched
-  probe/insert kernel locally (ops/table.py).
+  (key words, amount) record over the device interconnect; the owner
+  runs the same batched probe/insert kernel locally (ops/table.py).
 
 Within a shard the probe sequence uses only low slot bits, so shards are
 independent open-addressing tables and single-device results equal
@@ -20,7 +20,7 @@ multi-device results as count multisets.
 
 The per-destination routing capacity is the full local window count, so
 routing can never drop records (skew-proof); a future optimization is
-local sort-dedup + 2x-slack capacity to cut ICI volume.
+local sort-dedup + 2x-slack capacity to cut interconnect volume.
 """
 
 from __future__ import annotations
@@ -42,17 +42,12 @@ from ..models.tiling import TileBatcher
 
 
 def make_mesh(n_devices: int = 0, platform: str | None = None) -> Mesh:
-    """1-D device mesh; falls back to the CPU backend when the default
-    platform has fewer devices than requested (virtual-device testing)."""
+    """1-D mesh over the first ``n_devices`` devices of ``platform``
+    (default: JAX's default backend; 0 = all of them).  Raises when the
+    platform has fewer devices — pass platform="cpu" explicitly for
+    virtual-device runs."""
     devs = jax.devices(platform) if platform else jax.devices()
     n = n_devices or len(devs)
-    if len(devs) < n and platform is None:
-        try:
-            cpu = jax.devices("cpu")
-        except RuntimeError:
-            cpu = []
-        if len(cpu) >= n:
-            devs = cpu
     if n & (n - 1):
         raise ValueError(f"device count must be a power of two, got {n}")
     if len(devs) < n:

@@ -1,6 +1,5 @@
 """Multi-device sharded counting on the super-k-mer (minimizer-run)
-pipeline — skm composed with the distributed path (round-3 VERDICT
-item 5).
+pipeline — skm composed with the distributed path.
 
 Streaming is identical in shape to ShardedSortCounter (pure data
 parallelism: each device segments its own k-1-haloed span and merges
@@ -72,22 +71,16 @@ class ShardedSkmCounter(ShardedSortCounter):
 
     # -- streaming superstep -------------------------------------------------
 
-    def _skm_mode(self) -> str:
-        mode = self._pallas_mode()
-        return mode if mode in ("on", "off", "interpret") else "off"
-
     def _build_superstep(self, cap: int, dense: bool):
         cfg = self.cfg
         k, n = cfg.k, cfg.batch_windows
         w = cfg.words
         S = self._S
-        mode = self._skm_mode()
 
         def body(packed, sep, prefix):
             pref = tuple(p[0] for p in prefix)
             new_prefix, ndv = skm.skm_superstep(
-                packed[0], sep[0], pref, k=k, n=n, S=S,
-                dense=dense, pallas=mode)
+                packed[0], sep[0], pref, k=k, n=n, S=S, dense=dense)
             # ndv = [nd_exact, nd_used, max_tile_runs]; replicate the
             # growth-relevant maxima so every process branches alike
             return tuple(c[None, :] for c in new_prefix) + (
@@ -100,7 +93,6 @@ class ShardedSkmCounter(ShardedSortCounter):
                       tuple(P("d", None) for _ in range(w + 1))),
             out_specs=tuple(P("d", None) for _ in range(w + 1))
             + (P("d", None), P(), P()),
-            check_vma=False,
         ))
 
     def _dispatch_round(self, packed_d, sep_d, dense: bool):
@@ -177,7 +169,6 @@ class ShardedSkmCounter(ShardedSortCounter):
                       P()),
             out_specs=tuple(P("d", None) for _ in range(self._kw + 1))
             + (P(),),
-            check_vma=False,
         ))
 
     def _build_kmer_exchange(self, cap: int):
@@ -259,7 +250,7 @@ class ShardedSkmCounter(ShardedSortCounter):
                     break
                 # SPMD-uniform accumulator growth (replicated pmax);
                 # nd_max is the exact required size — grow straight to
-                # it so each chunk retries at most once (ADVICE r4);
+                # it so each chunk retries at most once;
                 # coarse ladder: each capacity is a fresh compile
                 new_cap = sortcount.next_store_size(nd_max, coarse=True)
                 acc = tuple(

@@ -48,12 +48,11 @@ class ShardedSortConfig:
     merge_every: int = 4           # retained for config compat; the fused
                                    # superstep merges once per round
     prefix_cap: int = 1 << 20      # per-device distinct capacity; grows on demand
-    compactor: str = "auto"        # superstep variant, as in SortCounterConfig:
-                                   # auto/pallas/xla/interpret/merge/merge_interpret
-    winkeys: str = "auto"          # window-key extraction, as in
-                                   # SortCounterConfig (auto/packed/codes/legacy)
+    winkeys: str = "codes"         # window-key extraction, as in
+                                   # SortCounterConfig (codes/packed)
 
     def __post_init__(self):
+        sortcount.check_winkeys(self.winkeys)
         if self.k < 2:
             raise ValueError("k must be >= 2")
         if self.batch_windows & (self.batch_windows - 1):
@@ -84,9 +83,7 @@ class ShardedSortCounter:
         self.stats = {"windows_processed": 0, "batches": 0, "compactions": 0,
                       "grow_events": 0}
         # fused supersteps (unpack -> windows -> merge-with-prefix in ONE
-        # dispatch per round, exactly like the single-device flagship —
-        # the round-1 design of separate window steps + merge_every
-        # compactions paid one ~26 ms dispatch overhead per stage);
+        # dispatch per round, exactly like the single-device flagship);
         # jitted lazily per (cap, dense) shape
         self._superstep_jits = {}
         # optimistic chaining: round r+1 dispatches on round r's
@@ -195,10 +192,6 @@ class ShardedSortCounter:
         self.finish()
         return self
 
-    def _pallas_mode(self) -> str:
-        return sortcount.resolve_compactor(
-            self.cfg.compactor, self.mesh.devices.ravel()[0].platform)
-
     def _pack_rows(self, stream: np.ndarray, nrows: int,
                    force_dense: bool = False):
         """Split one round's stream into per-device spans (k-1 halo),
@@ -239,23 +232,18 @@ class ShardedSortCounter:
         k, n, rows = cfg.k, cfg.batch_windows, min(cfg.rows, cfg.batch_windows)
         w = cfg.words
         eb = sortcount.embed_bits(k)
-        mode = self._pallas_mode()
-        wk = sortcount.resolve_winkeys(cfg.winkeys)
+        wk = cfg.winkeys
 
         def body(packed, sep, prefix):
             pref = tuple(p[0] for p in prefix)
-            if mode.startswith("merge"):
-                new_prefix, nd = sortcount.superstep_merged(
-                    packed[0], sep[0], pref, k=k, n=n, rows=rows,
-                    ebits=eb, dense=dense, pallas=mode, winkeys=wk)
-            elif eb >= 21:
+            if eb >= 21:
                 new_prefix, nd = sortcount.superstep_embedded(
                     packed[0], sep[0], pref, k=k, n=n, rows=rows,
-                    ebits=eb, dense=dense, pallas=mode, winkeys=wk)
+                    ebits=eb, dense=dense, winkeys=wk)
             else:
                 new_prefix, nd = sortcount.superstep_plain(
                     packed[0], sep[0], pref, k=k, n=n, rows=rows,
-                    dense=dense, pallas=mode, winkeys=wk)
+                    dense=dense, winkeys=wk)
             # replicated global max so every process agrees on growth
             # decisions without gathering non-addressable shards
             return tuple(c[None, :] for c in new_prefix) + (
@@ -267,9 +255,6 @@ class ShardedSortCounter:
                       tuple(P("d", None) for _ in range(w + 1))),
             out_specs=tuple(P("d", None) for _ in range(w + 1))
             + (P("d", None), P()),
-            # pallas_call (the merge/compact kernels) cannot annotate
-            # varying-mesh-axes metadata on its outputs yet
-            check_vma=False,
         ))
 
     def _run_superstep(self, packed_d, sep_d, dense: bool):
@@ -493,9 +478,8 @@ class ShardedSortCounter:
         # may appear several times with PARTIAL counts, and the rows are
         # not globally sorted.  The fused supersteps require each
         # shard's prefix to be a SORTED run with at most one record per
-        # key (the c_last segment trick and the merge-path invariant
-        # both break otherwise), so aggregate + sort host-side before
-        # re-partitioning.
+        # key (the c_last segment trick breaks otherwise), so aggregate
+        # + sort host-side before re-partitioning.
         if keys.shape[0]:
             w0 = keys.shape[1]
             order = np.lexsort(tuple(keys[:, i] for i in range(w0 - 1, -1, -1)))

@@ -1,6 +1,6 @@
 """Offline output tools: count-file comparator and k-mer orienter.
 
-TPU-rebuild counterparts of the reference's pytools:
+Counterparts of the reference's pytools:
 - ``compare_count_files`` ~ pytools/compare_outputs.py:4-33, but
   order-normalized: the reference emits table-traversal order while this
   framework emits slot order, so both sides are sorted before diffing

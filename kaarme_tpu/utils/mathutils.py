@@ -2,9 +2,9 @@
 
 The reference sizes its table with ``next_prime3mod4`` because its weak
 polynomial rolling hash needs a prime modulus for quadratic probing
-(reference: source/functions_math.cpp:53-96).  The TPU rebuild uses strong
+(reference: source/functions_math.cpp:53-96).  This rebuild uses strong
 multiplicative mixing (murmur-style finalizers), so power-of-two capacities
-with mask addressing are both correct and much cheaper on the VPU; probing
+with mask addressing are both correct and much cheaper on the device; probing
 uses the triangular sequence h + i(i+1)/2 which is a full cycle mod 2^m.
 """
 
@@ -36,7 +36,7 @@ def next_prime3mod4(n: int) -> int:
     """Smallest prime >= n that is 3 (mod 4) — the reference's table
     sizing rule, kept for parity tooling (quadratic probes cover the
     whole table for such moduli; reference: source/functions_math.cpp:53-96).
-    The TPU tables themselves use power-of-two capacities instead."""
+    The device tables themselves use power-of-two capacities instead."""
     n = max(3, int(n))
     while n % 4 != 3 or not _is_prime(n):
         n += 1

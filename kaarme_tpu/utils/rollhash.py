@@ -9,7 +9,7 @@ The Bloom pipeline reduces the pair to a canonical "root hash"
 ``min(h_f, h_b)`` over q = 2^54
 (reference: include/parallel_parser.hpp:2832, main.cpp:433-435).
 
-The TPU path hashes materialized windows directly (ops/hashing.py) —
+The device path hashes materialized windows directly (ops/hashing.py) —
 rolling recurrences buy nothing when all windows exist at once — but
 this model is kept as a parity oracle: tests prove the rolling updates
 match direct polynomial evaluation and that the root hash is

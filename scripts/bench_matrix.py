@@ -1,9 +1,9 @@
-"""BASELINE config-matrix benchmark (VERDICT round-2 item 3; r5: median
-of >= 3 timed repeats with spread, true distinct k-mers, skm -b row,
-and a 10x coverage-scaled steady-state row).
+"""BASELINE config-matrix benchmark: median of >= 3 timed repeats with
+spread, true distinct k-mers, skm -b row, and a 10x coverage-scaled
+steady-state row.
 
-Runs the headline workload family across the driver's config matrix on
-the real chip and writes BENCHMATRIX_r{N}.json:
+Runs the headline workload family across the config matrix on the GPU
+and writes a JSON file:
 
   - k = 31 / 51 / 63 (short, headline, multi-word packing)
   - mode 0 (plain-table output clipping semantics)
@@ -11,7 +11,7 @@ the real chip and writes BENCHMATRIX_r{N}.json:
   - pipeline = classic vs skm at the headline k
   - skm at 10x the coverage (fixed costs amortized, same distinct set)
 
-Usage: python scripts/bench_matrix.py [--out BENCHMATRIX_r05.json]
+Usage: python scripts/bench_matrix.py [--out bench_matrix.json]
        [--genome-mb 4.6 --coverage 30] [--quick]
 """
 
@@ -21,13 +21,14 @@ import time
 
 import numpy as np
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="BENCHMATRIX_r03.json")
+    ap.add_argument("--out", default="bench_matrix.json")
     ap.add_argument("--genome-mb", type=float, default=4.6)
     ap.add_argument("--coverage", type=int, default=30)
     ap.add_argument("--read-len", type=int, default=150)
@@ -40,12 +41,9 @@ def main():
 
     import jax
 
-    from kaarme_tpu.utils.platform import pin_platform_from_env
+    from kaarme_tpu.utils.compile_cache import enable_compile_cache
 
-    pin_platform_from_env()
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from bench import make_reads
     from kaarme_tpu.models.sort_counter import (SortCounterConfig,

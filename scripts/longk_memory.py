@@ -1,4 +1,4 @@
-"""Long-k closure (round-3 VERDICT item 6): k=101/201 at ecoli-ish
+"""Long-k closure: k=101/201 at ecoli-ish
 scale — golden-oracle equality through both pipelines plus the
 measured bytes/distinct-kmer of the classic columnar store vs the skm
 run store vs the reference's ~17 B/kmer (kmer.hpp:103-149 slot word +
@@ -6,7 +6,7 @@ secondary array at 0.5 load; DESIGN.md section 7b).
 
     python scripts/longk_memory.py [--genome-mb 1.0 --coverage 8]
 
-Round 5: writes LONGK_r05.json (VERDICT r4 missing 3 / next-round 4).
+Writes the results to --out.
 """
 
 import argparse
@@ -17,7 +17,7 @@ import time
 import numpy as np
 
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -30,10 +30,7 @@ def main():
                     help="also diff against the NumPy golden oracle "
                          "(slow at scale; always done at --genome-mb "
                          "<= 0.3)")
-    ap.add_argument("--out", default="LONGK_r05.json")
-    ap.add_argument("--segpack", default="auto",
-                    help="skm segpack route (auto/dense/xla — xla "
-                         "avoids the very-long-k kernel compile)")
+    ap.add_argument("--out", default="longk_memory.json")
     args = ap.parse_args()
 
     results = {}
@@ -42,12 +39,9 @@ def main():
 
     import jax
 
-    from kaarme_tpu.utils.platform import pin_platform_from_env
+    from kaarme_tpu.utils.compile_cache import enable_compile_cache
 
-    pin_platform_from_env()
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/.cache/jax_comp_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from bench import make_reads
     from kaarme_tpu.models.skm_counter import SkmCounter, SkmCounterConfig
@@ -76,8 +70,7 @@ def main():
               f"distinct={nd} store={classic_bpd} B/kmer", flush=True)
 
         t0 = time.perf_counter()
-        c2 = SkmCounter(SkmCounterConfig(k=k, segpack=args.segpack,
-                                         **common))
+        c2 = SkmCounter(SkmCounterConfig(k=k, **common))
         c2.count_codes(codes)
         store, nd2 = c2.finalize_device()
         for col in store:

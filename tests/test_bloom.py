@@ -142,7 +142,7 @@ def test_bloom_sort_backend_drops_singletons_exactly():
 
 def test_bloom_sort_backend_matches_table_backend():
     """Parity: the sort-backend filter and the probe-table filter agree
-    on the count->=2 set (VERDICT round-1 item 6)."""
+    on the count->=2 set."""
     from kaarme_tpu.models.bloom_counter import (
         BloomCounterConfig, bloom_count_codes, bloom_sort_count_codes)
 
@@ -192,13 +192,11 @@ def _skm_cfg(k, **kw):
     kw.setdefault("superbatch_batches", 2)
     kw.setdefault("prefix_cap", 1 << 14)
     kw.setdefault("min_abundance", 2)
-    kw.setdefault("segpack", "dense_interpret")
-    kw.setdefault("compactor", "interpret")
     return SkmCounterConfig(k=k, **kw)
 
 
 def test_bloom_skm_drops_singletons_exactly():
-    """--pipeline skm -b (VERDICT r4 missing 4): the BF2 gate applied
+    """--pipeline skm -b: the BF2 gate applied
     at finalize expansion yields exactly the count>=2 set — no false
     negatives, singletons absent (BF false positives are dropped by
     the min-abundance threshold)."""

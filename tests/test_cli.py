@@ -100,8 +100,7 @@ def test_cli_bloom_sort_backend_matches_table(tmp_path):
 
 def test_cli_skm_pipeline_golden(tmp_path):
     """--pipeline skm end-to-end through the CLI: byte-identical output
-    to the classic pipeline and to the golden oracle (the round-3 skm
-    CLI check, promoted from an untracked /tmp script — VERDICT r3)."""
+    to the classic pipeline and to the golden oracle."""
     rng = np.random.default_rng(11)
     genome = "".join("ACGT"[c] for c in rng.integers(0, 4, size=800))
     reads = []

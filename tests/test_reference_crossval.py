@@ -4,9 +4,8 @@ Builds the reference (kaarme) with CMake out-of-tree, runs both the
 reference and this framework's CLI on the same synthetic FASTA, and
 requires the order-normalized count files to be EQUAL.
 
-The round-1 judge flagged that every correctness test checked only the
-repo's own golden model (VERDICT.md "What's missing" #2); this closes
-the loop against the real implementation (reference CLI:
+Every other correctness test checks the repo's own golden model; this
+closes the loop against the real implementation (reference CLI:
 /root/reference/main.cpp:127-156; output writer:
 /root/reference/source/kmer_hash_table.cpp:4318-4524; comparator
 semantics: /root/reference/pytools/compare_outputs.py:4-33).
@@ -119,7 +118,7 @@ def _run_ours(fasta_path, k, out, extra):
 def test_exact_mode2(fasta, tmp_path, k):
     ref = _run_reference(fasta, k, str(tmp_path / "ref.out"),
                          ["-m", "2", "-s", "600000"])
-    got = _run_ours(fasta, k, str(tmp_path / "tpu.out"),
+    got = _run_ours(fasta, k, str(tmp_path / "ours.out"),
                     ["-m", "2", "-s", "600000"])
     assert got == ref
     assert len(ref) > 1000  # non-trivial workload
@@ -128,7 +127,7 @@ def test_exact_mode2(fasta, tmp_path, k):
 def test_exact_mode0(fasta, tmp_path):
     ref = _run_reference(fasta, 31, str(tmp_path / "ref.out"),
                          ["-m", "0", "-s", "600000"])
-    got = _run_ours(fasta, 31, str(tmp_path / "tpu.out"),
+    got = _run_ours(fasta, 31, str(tmp_path / "ours.out"),
                     ["-m", "0", "-s", "600000"])
     assert got == ref
 
@@ -136,7 +135,7 @@ def test_exact_mode0(fasta, tmp_path):
 def test_min_abundance(fasta, tmp_path):
     ref = _run_reference(fasta, 31, str(tmp_path / "ref.out"),
                          ["-m", "2", "-s", "600000", "-a", "4"])
-    got = _run_ours(fasta, 31, str(tmp_path / "tpu.out"),
+    got = _run_ours(fasta, 31, str(tmp_path / "ours.out"),
                     ["-m", "2", "-s", "600000", "-a", "4"])
     assert got == ref
 
@@ -146,7 +145,7 @@ def test_bloom_mode(fasta, tmp_path):
     exact output (FP singletons counted once, filtered by -a 2)."""
     ref = _run_reference(fasta, 31, str(tmp_path / "ref.out"),
                          ["-m", "2", "-b", "-u", "60000"])
-    got = _run_ours(fasta, 31, str(tmp_path / "tpu.out"),
+    got = _run_ours(fasta, 31, str(tmp_path / "ours.out"),
                     ["-b", "-u", "60000"])
     assert got == ref
 
@@ -180,7 +179,7 @@ def test_reference_bug_k_multiple_of_32(fasta, tmp_path, k):
     flags it so the equality net can widen)."""
     from kaarme_tpu.utils import codec
 
-    got = _run_ours(fasta, k, str(tmp_path / "tpu.out"),
+    got = _run_ours(fasta, k, str(tmp_path / "ours.out"),
                     ["-m", "2", "-s", "600000", "-a", "1"])
     codes, _ = codec.encode_fasta(open(fasta, "rb").read())
     golden = codec.golden_count(codes, k)
@@ -225,7 +224,7 @@ def test_ecoli_scale_driver_config(tmp_path):
             f.write(b">r%d\n" % i + lut[genome[s:s + 150]].tobytes() + b"\n")
     ref = _run_reference(str(fa), 51, str(tmp_path / "ref.out"),
                          ["-m", "2", "-s", "8000000"])
-    got = _run_ours(str(fa), 51, str(tmp_path / "tpu.out"),
+    got = _run_ours(str(fa), 51, str(tmp_path / "ours.out"),
                     ["-m", "2", "-s", "8000000"])
     assert got == ref
     assert len(ref) > 300_000
@@ -241,7 +240,7 @@ def test_count_clipping_vs_reference(tmp_path, mode):
     fa.write_bytes(b">r\n" + b"A" * 70000 + b"\n")
     ref = _run_reference(str(fa), 30, str(tmp_path / "ref.out"),
                          ["-m", mode, "-s", "10000", "-a", "1"])
-    got = _run_ours(str(fa), 30, str(tmp_path / "tpu.out"),
+    got = _run_ours(str(fa), 30, str(tmp_path / "ours.out"),
                     ["-m", mode, "-s", "10000", "-a", "1"])
     assert got == ref
     assert ref["A" * 30] == (16383 if mode == "2" else 69971 % 65536)
@@ -255,7 +254,7 @@ def test_palindrome_tiebreak_vs_reference(tmp_path):
     fa.write_bytes(b">r\nACGTACGTTTTTAAAAACGT\n")
     ref = _run_reference(str(fa), 4, str(tmp_path / "ref.out"),
                          ["-s", "1000", "-a", "1"])
-    got = _run_ours(str(fa), 4, str(tmp_path / "tpu.out"),
+    got = _run_ours(str(fa), 4, str(tmp_path / "ours.out"),
                     ["-s", "1000", "-a", "1"])
     assert got == ref
     assert "ACGT" in ref   # the palindrome is present and forward-form
@@ -270,7 +269,7 @@ def test_format_edge_cases(tmp_path, case):
     fa.write_bytes(_FORMAT_CASES[case])
     ref = _run_reference(str(fa), 11, str(tmp_path / "ref.out"),
                          ["-s", "10000", "-a", "1"])
-    got = _run_ours(str(fa), 11, str(tmp_path / "tpu.out"),
+    got = _run_ours(str(fa), 11, str(tmp_path / "ours.out"),
                     ["-s", "10000", "-a", "1"])
     assert got == ref
     assert ref  # every case yields at least one countable k-mer

@@ -124,26 +124,25 @@ def test_sharded_sort_checkpoint_after_finalize_raises(tmp_path):
         c.save(str(tmp_path / "x.npz"))
 
 
-@pytest.mark.parametrize("compactor", ["merge_interpret", "interpret"])
-def test_sharded_pallas_superstep_variants(compactor):
-    """The fused superstep's Pallas paths (merge kernel / compact
-    kernel, interpreter mode) compose with shard_map on the virtual
-    mesh and stay golden."""
+@pytest.mark.parametrize("winkeys", ["codes", "packed"])
+def test_sharded_superstep_winkeys(winkeys):
+    """Both window-key formulations compose with shard_map on the
+    virtual mesh and stay golden."""
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 5, size=8 * (1 << 10) + 333).astype(np.uint8)
     cfg = ShardedSortConfig(k=17, batch_windows=1 << 10, rows=1 << 5,
                             prefix_cap=1 << 12, min_abundance=1,
-                            compactor=compactor)
+                            winkeys=winkeys)
     c = ShardedSortCounter(cfg, make_mesh(8)).count_codes(codes)
     assert c.as_dict() == codec.golden_count(codes, 17)
 
 
-@pytest.mark.parametrize("compactor", ["auto", "merge_interpret"])
-def test_sharded_checkpoint_duplication_heavy(tmp_path, compactor):
+@pytest.mark.parametrize("winkeys", ["codes", "packed"])
+def test_sharded_checkpoint_duplication_heavy(tmp_path, winkeys):
     """Regression: checkpoint rows carry PARTIAL counts for the same key
     on several shards and are not globally sorted; load() must
     aggregate + sort before re-partitioning or the fused supersteps
-    (c_last trick / merge-path invariant) silently corrupt counts."""
+    (c_last trick) silently corrupt counts."""
     k = 17
     rng = np.random.default_rng(21)
     base = rng.integers(0, 4, size=500).astype(np.uint8)
@@ -153,14 +152,14 @@ def test_sharded_checkpoint_duplication_heavy(tmp_path, compactor):
 
     cfg = ShardedSortConfig(k=k, batch_windows=1 << 10, rows=1 << 5,
                             prefix_cap=1 << 12, min_abundance=1,
-                            compactor=compactor)
+                            winkeys=winkeys)
     c = ShardedSortCounter(cfg, make_mesh(8))
     c.add_codes(codes[:half])
     c.save(path)
     c2 = ShardedSortCounter.load(
         path, ShardedSortConfig(k=k, batch_windows=1 << 10, rows=1 << 5,
                                 prefix_cap=1 << 12, min_abundance=1,
-                                compactor=compactor),
+                                winkeys=winkeys),
         make_mesh(4))
     c2.add_codes(codes[half:])
     c2.finish()

@@ -206,26 +206,15 @@ def test_skm_find_and_clipping():
     assert c.find(["N" * 31]) == [-1]
 
 
-def test_skm_superstep_pallas_interpret():
-    """Pallas segsum/compact tail (ebits=26) bit-matches the XLA path."""
-    rng = np.random.default_rng(12)
-    k, n = 31, 1024
-    genome = rng.integers(0, 4, size=300, dtype=np.int64).astype(np.uint8)
-    parts = []
-    while sum(p.shape[0] for p in parts) < n + k + 8:
-        s = int(rng.integers(0, 180))
-        parts.append(genome[s: s + 110])
-        parts.append(np.full(1, 4, np.uint8))
-    stream = np.concatenate(parts)[: n + k - 1]
-    packed, maskw = sortcount.pack_stream_np(stream)
-    prefix = sortcount.make_store(1 << 13, skm.store_words(k))
-    outs = {}
-    for mode in ("off", "interpret"):
-        store, ndv = skm.skm_superstep(
-            jnp.asarray(packed), jnp.asarray(maskw), prefix,
-            k=k, n=n, S=96, dense=True, pallas=mode)
-        nd, ndu, mx = (int(x) for x in np.asarray(ndv))
-        rows = np.stack([np.asarray(c[:ndu]) for c in store], axis=1)
-        live = rows[(rows[:, -1] > 0) & (rows[:, -1] != 0xFFFFFFFF)]
-        outs[mode] = sorted(map(tuple, live.tolist()))
-    assert outs["off"] == outs["interpret"] and len(outs["off"]) > 0
+def test_skm_cold_start_overflow_replay_terminates():
+    """A first superstep whose distinct runs exceed the cold-start prefix
+    guess (sizing active: prefix_cap > 2^12) overflows; the replay must
+    keep the grown size instead of slicing back to the guess."""
+    rng = np.random.default_rng(10)
+    codes = rng.integers(0, 4, size=1 << 18, dtype=np.int64).astype(np.uint8)
+    cfg = SkmCounterConfig(k=31, batch_windows=1 << 18, rows=1 << 9,
+                           superbatch_batches=1, prefix_cap=1 << 20,
+                           min_abundance=1)
+    c = SkmCounter(cfg).count_codes(codes)
+    assert c.n_distinct > (1 << 14)        # above the cold-start guess
+    assert c.as_dict() == codec.golden_count(codes, 31)

@@ -87,13 +87,12 @@ def test_window_keys_packed_bit_equality(k):
 @pytest.mark.parametrize("k", [31, 32, 51])
 def test_golden_equality_packed_winkeys(k):
     """End-to-end golden equality with the packed window-key extraction
-    on every superstep variant that runs on CPU."""
+    (embedded-count and separate-count supersteps)."""
     rng = np.random.default_rng(7 * k)
     codes = _random_stream(rng, 3000)
     golden = codec.golden_count(codes, k)
-    for compactor in ("xla", "interpret", "merge_interpret"):
-        c = _counter(k, compactor=compactor, winkeys="packed").count_codes(codes)
-        assert c.as_dict() == golden, compactor
+    c = _counter(k, winkeys="packed").count_codes(codes)
+    assert c.as_dict() == golden
 
 
 def test_multi_batch_and_carry():
